@@ -1,4 +1,4 @@
-"""Packaging for shadowing-tpu (TPU-native Path Shadowing Monte Carlo).
+"""Packaging for shadowing-tpu (Path Shadowing Monte Carlo in JAX).
 
 Builds the optional native shard-loader extension when a C toolchain is
 available; the package works without it (pure-numpy fallback).
@@ -22,11 +22,12 @@ if os.environ.get("SHADOWING_TPU_NO_NATIVE") != "1":
 setup(
     name="shadowing-tpu",
     version="0.1.0",
-    description="TPU-native Path Shadowing Monte Carlo (JAX/XLA/Pallas)",
+    description="Path Shadowing Monte Carlo in JAX",
     packages=find_packages(include=["shadowing_tpu", "shadowing_tpu.*"]),
     package_data={"shadowing_tpu.data": ["_bundled/*.npz"]},
     python_requires=">=3.10",
-    install_requires=["jax", "numpy", "pandas"],
-    extras_require={"viz": ["matplotlib"], "test": ["pytest", "scipy"]},
+    install_requires=["jax", "numpy"],
+    extras_require={"viz": ["matplotlib"], "csv": ["pandas"],
+                    "test": ["pytest", "scipy", "pandas"]},
     ext_modules=ext_modules,
 )

@@ -1,4 +1,4 @@
-"""shadowing-tpu: TPU-native Path Shadowing Monte Carlo.
+"""shadowing-tpu: Path Shadowing Monte Carlo in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 ``RudyMorel/shadowing`` (Path Shadowing Monte Carlo, arXiv:2308.01486) plus
@@ -7,7 +7,8 @@ spectra synthesis, MRW, PDV), the fused shadow search, volatility
 prediction, and Hedged-Monte-Carlo option pricing.
 
 The public API mirrors the reference's concepts so its users can switch
-directly; every implementation is designed TPU-first (see module docstrings).
+directly; the implementations are dense, statically shaped device programs
+(see module docstrings).
 """
 
 __version__ = "0.1.0"

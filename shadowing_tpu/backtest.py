@@ -8,7 +8,7 @@ and score the predictions against what actually happened — optionally
 against the Guyon–Lekeufack autoregressive linear benchmark
 (:class:`shadowing_tpu.models.pdv.AutoregressiveLinearPredictor`).
 
-TPU design: all dates are just the context batch axis — one fused search
+Design: all dates are just the context batch axis — one search
 scores every (date x trajectory x window) triple; dates stream in chunks
 through ``predict`` to bound memory. ~10k dates x 32k trajectories x 4k
 windows is a single-chip workload; shard the dataset axis over a mesh

@@ -22,7 +22,6 @@ import argparse
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 
 def ingest_csv(
@@ -37,6 +36,8 @@ def ingest_csv(
     Rows are sorted by date; duplicate dates and non-positive or missing
     closes are rejected (a silent drop would shift every return).
     """
+    import pandas as pd  # CSV parsing only: an optional dependency
+
     df = pd.read_csv(csv_path)
     cols = {c.lower().strip(): c for c in df.columns}
     try:

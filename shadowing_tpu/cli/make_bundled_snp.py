@@ -15,7 +15,6 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 SEED = 20240101
 START, END = "1990-01-02", "2024-12-20"
@@ -54,6 +53,8 @@ def simulate(n_steps: int, rng: np.random.Generator) -> np.ndarray:
 
 
 def main() -> Path:
+    import pandas as pd  # business-day calendar only: optional dependency
+
     dts = pd.bdate_range(START, END)
     # drop New-Year / mid-year holidays approximately: keep plain bdays
     rng = np.random.default_rng(SEED)

@@ -32,11 +32,13 @@ from shadowing_tpu import (  # noqa: E402
     compute_smile,
     plot_shadow,
 )
+from shadowing_tpu.utils import enable_compile_cache  # noqa: E402
 
 W, HORIZON, K, R = 126, 252, 8192, 2048
 
 
 def main(outdir: Path | str = None) -> list:
+    enable_compile_cache()
     outdir = Path(outdir) if outdir else Path(__file__).parents[2] / "illustration"
     outdir.mkdir(parents=True, exist_ok=True)
 

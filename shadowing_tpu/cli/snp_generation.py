@@ -1,7 +1,7 @@
 """Generate scattering-spectra realizations calibrated to the bundled
 S&P daily series.
 
-TPU-native rebuild of ``/root/reference/scripts/snp_generation.py``: same
+Rebuild of ``/root/reference/scripts/snp_generation.py``: same
 CLI surface (``-ntot``/``-tid`` job-array sharding, ``-J``, ``-R``,
 ``--epsilon``) with the same semantics — task ``tid`` of ``ntot`` generates
 ``R // ntot`` trajectories into a shared cache directory, independently
@@ -24,7 +24,7 @@ def get_args():
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("-ntot", type=int, default=None,
                         help="total number of job-array tasks (default: the "
-                        "JAX process count — on a multi-host pod slice the "
+                        "JAX process count — on several hosts the "
                         "same invocation on every host partitions the work)")
     parser.add_argument("-tid", type=int, default=None,
                         help="this task's id (default: jax.process_index())")
@@ -62,8 +62,11 @@ def main():
     args = get_args()
     from shadowing_tpu import SPDaily, generate
     from shadowing_tpu.parallel.multihost import initialize, task_split
+    from shadowing_tpu.utils import enable_compile_cache
 
-    initialize()  # no-op single-host; joins the pod slice otherwise
+    enable_compile_cache()
+
+    initialize()  # no-op single-host; joins the process grid otherwise
     ntot, tid = task_split(args.ntot, args.tid)
     snp = SPDaily(start=args.start, end=args.end, path=args.data)
     r_task = args.R // ntot

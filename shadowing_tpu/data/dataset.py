@@ -1,6 +1,6 @@
 """Sharded on-disk trajectory datasets.
 
-TPU-native replacement for the ``scatspectra.TimeSeriesDataset`` surface used
+Replacement for the ``scatspectra.TimeSeriesDataset`` surface used
 by the reference (``/root/reference/shadowing/path_shadowing/
 path_shadowing.py:84-87``, ``README.md:42``): a directory of ``.npy`` shards
 (each ``(r_i, C, T)`` or ``(r_i, T)``), loaded lazily, keeping the first

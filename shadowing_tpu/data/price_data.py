@@ -1,6 +1,6 @@
 """Price-series container with lossless representation conversions.
 
-TPU-native replacement for the ``scatspectra.PriceData`` surface consumed by
+Replacement for the ``scatspectra.PriceData`` surface consumed by
 the reference (see call sites at ``/root/reference/shadowing/PDV/PDV.py:8,
 202-204,307-309`` and ``tutorial.ipynb`` cells 2/14/16): a series can be
 specified as prices ``x``, log-prices ``lnx``, price increments ``dx`` or

@@ -1,11 +1,11 @@
 """Bundled daily S&P-like price dataset.
 
-TPU-native replacement for the ``scatspectra.SPDaily`` surface used by the
+Replacement for the ``scatspectra.SPDaily`` surface used by the
 reference (``/root/reference/scripts/snp_generation.py:32``,
 ``tutorial.ipynb`` cell 5, ``README.md:35-37``): a packaged daily price
-series with ``.dlnx`` of shape ``(1, 1, T)`` and ``.dts`` (datetimes), with
-optional ``start``/``end`` date filtering in day-first format
-(e.g. ``'03-01-2000'`` .. ``'31-12-2014'``).
+series with ``.dlnx`` of shape ``(1, 1, T)`` and ``.dts`` (the return dates
+as a ``datetime64[D]`` array), with optional ``start``/``end`` date
+filtering in day-first format (e.g. ``'03-01-2000'`` .. ``'31-12-2014'``).
 
 IMPORTANT — data provenance: this build environment has no network access and
 the upstream package's bundled S&P 500 csv is unavailable, so the series
@@ -21,18 +21,27 @@ production use; the file format is ``{'dlnx': (T,) float64,
 """
 from __future__ import annotations
 
+import re
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 from shadowing_tpu.data.price_data import PriceData
 
 BUNDLE_PATH = Path(__file__).parent / "_bundled" / "snp_daily.npz"
 
 
-def _parse_dayfirst(s: str) -> pd.Timestamp:
-    return pd.to_datetime(s, dayfirst=True)
+def _parse_dayfirst(s: str) -> np.datetime64:
+    """``'DD-MM-YYYY'`` (``-``, ``/`` or ``.`` separated) or ISO
+    ``'YYYY-MM-DD'`` -> ``datetime64[D]``."""
+    parts = re.split(r"[-/.]", s.strip())
+    if len(parts) != 3 or not all(p.isdigit() for p in parts):
+        raise ValueError(f"unrecognised date {s!r}: expected DD-MM-YYYY")
+    if len(parts[0]) == 4:
+        y, m, d = parts
+    else:
+        d, m, y = parts
+    return np.datetime64(f"{int(y):04d}-{int(m):02d}-{int(d):02d}", "D")
 
 
 class SPDaily(PriceData):
@@ -48,7 +57,7 @@ class SPDaily(PriceData):
         dlnx = bundle["dlnx"]
         days = bundle["days"]
         x_init = float(bundle["x_init"])
-        dts = pd.DatetimeIndex(days.astype("datetime64[D]"))
+        dts = days.astype("datetime64[D]")
 
         mask = np.ones(len(dts), dtype=bool)
         if start is not None:

@@ -1,6 +1,6 @@
 """Multifractal Random Walk (MRW) path generator.
 
-TPU-native replacement for the ``scatspectra.MRWGenerator`` surface used by
+Replacement for the ``scatspectra.MRWGenerator`` surface used by
 the reference tutorial (``/root/reference/tutorial.ipynb`` cell 4:
 ``MRWGenerator(T=4097, H=0.5, lam=0.2, cache_path).load(R) -> (R, 1, T)``
 log-prices, disk-cached under a parameter-encoded directory name).
@@ -16,7 +16,7 @@ and mean ``-Var(omega)`` so that ``E[exp(2*omega)] = 1`` (increment variance
 is then ``sigma^2`` at the finest scale).
 
 Sampling is all-FFT (circulant embedding / Davies–Harte), jit-compiled and
-batched over realizations — a TPU-friendly dense pipeline with no sequential
+batched over realizations — a dense pipeline with no sequential
 loops. Generation is deterministic per (seed, parameters).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Path-Dependent Volatility (PDV) models, Guyon & Lekeufack (2023).
 
-TPU-native rebuild of the reference's PDV module
+Rebuild of the reference's PDV module
 (``/root/reference/shadowing/PDV/PDV.py``): the continuous Euler-stepped
 model (reference ``PDV.py:167-268``), the discrete daily-grid variant
 (``PDV.py:271-383``), the autoregressive linear volatility benchmark
@@ -8,7 +8,7 @@ model (reference ``PDV.py:167-268``), the discrete daily-grid variant
 the past-to-factors bridge used to run PDV as a conditional generator
 (``PDV.py:386-430``).
 
-Design differences from the reference (all TPU-first):
+Design differences from the reference:
 
 * time stepping is ``lax.scan`` (compiled once, no Python loop), batched
   over simulation paths — the reference steps a Python ``for`` loop over

@@ -26,7 +26,6 @@ what the synthesis optimiser matches.
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from functools import lru_cache, partial
 from typing import Tuple
@@ -36,26 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from shadowing_tpu.models.scattering.wavelets import FilterBank
-from shadowing_tpu.ops import fft as mmfft
-
-
-def _auto_mm_fft() -> bool:
-    """Whether to run the wavelet transforms as MXU matmul DFTs
-    (:mod:`shadowing_tpu.ops.fft`) instead of XLA's native FFT.
-
-    Default: on for the TPU backend (where the native FFT is a vector-unit
-    codepath and the matmul form measured ~3x faster at the generation
-    shapes), off elsewhere (pocketfft on CPU is the honest best). Override
-    with ``SHADOWING_TPU_MM_FFT=0/1``. Resolved at trace time; the two
-    forms agree to f32 round-off, and every statistic is produced by the
-    same function for targets and seeds either way.
-    """
-    env = os.environ.get("SHADOWING_TPU_MM_FFT", "auto")
-    if env in ("0", "off"):
-        return False
-    if env in ("1", "on"):
-        return True
-    return jax.default_backend() == "tpu"
+from shadowing_tpu.ops import precision
 
 
 def _index_pairs(J: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -101,45 +81,27 @@ def _trip_perm(J: int) -> np.ndarray:
     return np.asarray([mine.index(t) for t in canon], np.int32)
 
 
-@partial(jax.jit, static_argnames=("J", "use_mm", "bands"))
+@partial(jax.jit, static_argnames=("J", "bands"))
 def _scattering_stats_flat(
     x: jax.Array,          # (B, T) real series (log-returns)
     psi_hat: jax.Array,    # (J, T)
     J: int,
-    use_mm: bool | None = None,  # None: backend default (_auto_mm_fft)
     bands: tuple | None = None,  # per-scale support bins (FilterBank.band_hi)
 ) -> jax.Array:            # (B, n_stats) float32
     B, T = x.shape
-    if use_mm is None:
-        use_mm = _auto_mm_fft()
-    if T & (T - 1):
-        use_mm = False  # matmul DFT is power-of-two only (observed-series
-        #                 grids are arbitrary; synthesis grids are 2^k)
     half_ = T // 2 + 1
     mean = x.mean(axis=-1)
     xc = x - mean[:, None]
     var = (xc**2).mean(axis=-1)
 
-    # wavelet transforms: the filters are strictly analytic (zero at all
-    # negative bins AND Nyquist, tested), so only the non-negative half
-    # spectrum ever carries signal — the mm path works on half spectra
-    # end to end (real-input forward, analytic inverse)
-    # the mm path stays in (real, imag) f32 planes end to end — no
-    # complex64 arrays at all (plane arithmetic measured ~30% faster
-    # than complex ops through XLA on this backend)
-    psi_h = psi_hat[:, :half_]
-    if use_mm:
-        xr, xi = mmfft.rfft_mm_planes(xc)               # (B, half) each
-        wr, wi = mmfft.ifft_analytic_mm_planes(
-            xr[:, None, :] * psi_h[None], xi[:, None, :] * psi_h[None], T
-        )                                               # (B, J, T) each
-        env = jnp.sqrt(wr * wr + wi * wi)
-    else:
-        xf = jnp.fft.fft(xc, axis=-1)                   # (B, T) complex
-        xf_h = xf[..., :half_]
-        xr, xi = jnp.real(xf_h), jnp.imag(xf_h)
-        w = jnp.fft.ifft(xf[:, None, :] * psi_hat[None], axis=-1)
-        env = jnp.abs(w)                                # (B, J, T)
+    # wavelet transforms through XLA's FFT (cuFFT on the GPU; an
+    # H100 timed it 1.45x faster than a matmul DFT at the generation shape,
+    # PERF.md). Only the non-negative half spectrum of x is needed below.
+    xf = jnp.fft.fft(xc, axis=-1)                       # (B, T) complex
+    xf_h = xf[..., :half_]
+    xr, xi = jnp.real(xf_h), jnp.imag(xf_h)
+    w = jnp.fft.ifft(xf[:, None, :] * psi_hat[None], axis=-1)
+    env = jnp.abs(w)                                    # (B, J, T)
 
     p2 = (env**2).mean(axis=-1)                         # (B, J)
     sig = jnp.sqrt(jnp.maximum(p2, 1e-30))
@@ -158,17 +120,14 @@ def _scattering_stats_flat(
     #   Phi_4(a,b,c) = <W_c(e_a) conj(W_c(e_b))>-> sum_w ef_a conj(ef_b) |psi_c|^2
     # with e_j the centred envelopes. So the whole W_c(e_a) ifft pass, the
     # one-hot pair expansion, and the (B, n_pairs, T) intermediates vanish;
-    # what remains is one weighted (MXU) contraction per statistic. The
+    # what remains is one weighted contraction per statistic. The
     # wavelets are analytic (psi_hat = 0 for w < 0, tested), so the sums run
     # over the non-negative half-spectrum only.
     envc = env - env.mean(axis=-1, keepdims=True)
     half = half_
     S = (jnp.abs(psi_hat) ** 2)[:, :half]               # (J, half) real
-    if use_mm:
-        er, ei = mmfft.rfft_mm_planes(envc)             # (B, J, half) each
-    else:
-        ef_h = jnp.fft.fft(envc, axis=-1)[..., :half]
-        er, ei = jnp.real(ef_h), jnp.imag(ef_h)
+    ef_h = jnp.fft.fft(envc, axis=-1)[..., :half]
+    er, ei = jnp.real(ef_h), jnp.imag(ef_h)
     inv_T2 = 1.0 / (jnp.float32(T) * T)
 
     # Phi_3 / Phi_4 spectral contractions, band-limited and in real planes.
@@ -177,14 +136,14 @@ def _scattering_stats_flat(
     #     only ~T/2**b low bins (``bands``, static from the FilterBank), so
     #     each b-group contracts a dyadically shrinking slice — total work
     #     ~2 full-spectrum passes instead of ~J (measured: the full-width
-    #     pair form was 5.6 ms fwd+bwd of an 8.9 ms synthesis step);
-    #   * complex arithmetic via explicit real/imag planes is ~30% faster
-    #     through XLA than complex64 ops on this backend (measured).
+    #     pair form cost ~J full-spectrum passes);
+    #   * the complex products are spelled out on real/imag planes.
     # The truncation is exact to ~1e-12 relative (|psi| < 1e-6 peak beyond
-    # the band edge, squared in the weights).
+    # the band edge, squared in the weights). The contractions run at full
+    # float32 (precision.EXACT): the GPU's default TF32 would put ~5e-4
+    # relative error on statistics the synthesis matches to 1e-2.
     if bands is None:
         bands = (half,) * J
-    HIGH = jax.lax.Precision.HIGH
 
     ia, ib = _index_pairs(J)
     p3r, p3i = [], []
@@ -195,9 +154,9 @@ def _scattering_stats_flat(
         Sb = S[b, :hi]
         # z = ef_a * conj(xf)
         p3r.append(jnp.einsum("bat,t->ba", era * xrh + eia * xih, Sb,
-                              precision=HIGH))
+                              precision=precision.EXACT))
         p3i.append(jnp.einsum("bat,t->ba", eia * xrh - era * xih, Sb,
-                              precision=HIGH))
+                              precision=precision.EXACT))
     if p3r:
         perm3 = jnp.asarray(_pair_perm(J))
         p3r = jnp.concatenate(p3r, axis=1)[:, perm3] * inv_T2
@@ -218,9 +177,9 @@ def _scattering_stats_flat(
         Cr = era * erb + eia * eib
         Ci = eia * erb - era * eib
         p4r.append(jnp.einsum("bat,ct->bac", Cr, Sc,
-                              precision=HIGH).reshape(B, -1))
+                              precision=precision.EXACT).reshape(B, -1))
         p4i.append(jnp.einsum("bat,ct->bac", Ci, Sc,
-                              precision=HIGH).reshape(B, -1))
+                              precision=precision.EXACT).reshape(B, -1))
     if p4r:
         perm4 = jnp.asarray(_trip_perm(J))
         p4r = jnp.concatenate(p4r, axis=1)[:, perm4] * inv_T2

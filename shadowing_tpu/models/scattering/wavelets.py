@@ -3,8 +3,8 @@
 Foundation of the scattering-spectra model (arXiv:2204.10177) behind the
 reference's dataset generation (``/root/reference/scripts/
 snp_generation.py:39-50``). Filters are built once on host (numpy) and
-applied by FFT inside jit — a TPU-friendly dense pipeline (no strided
-convolution loops).
+applied by FFT inside jit — a dense pipeline (no strided convolution
+loops).
 
 The mother wavelet is an *analytic* Morlet: a Gaussian bump centred at
 ``xi = 3*pi/4`` with a correction term cancelling the DC response, truncated
@@ -36,7 +36,7 @@ class FilterBank:
         contractions here, which is what makes the cross-scale Phi_3/Phi_4
         terms cheap (coarse scales occupy ~T/2**j bins; contracting the
         full axis for every scale is ~J x wasted traffic). Rounded up to a
-        multiple of 128 (TPU lane width).
+        multiple of 128 bins.
     """
 
     J: int

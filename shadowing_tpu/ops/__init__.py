@@ -1,6 +1,6 @@
-"""TPU ops: exact tournament top-k, sliding correlations, Pallas searches
-(banded-Toeplitz :mod:`~shadowing_tpu.ops.pallas_search` and
-context-factored :mod:`~shadowing_tpu.ops.pallas_factored`)."""
+"""Search ops: exact tournament top-k, sliding correlations, the factored
+two-pass search (:mod:`~shadowing_tpu.ops.factored`) and the named matmul
+precisions (:mod:`~shadowing_tpu.ops.precision`)."""
 from shadowing_tpu.ops.sliding import sliding_dot
 from shadowing_tpu.ops.topk import (
     TopKResult,

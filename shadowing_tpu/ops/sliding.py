@@ -1,10 +1,8 @@
 """Sliding-window correlation as a segment x Toeplitz matmul.
 
 The shadow engine's hot op is a 1-d cross-correlation of long trajectories
-with short filters (the combined context filters and the embedding bank).
-XLA lowers single-channel ``conv_general_dilated`` poorly on TPU (measured
-1.02 s for 131072x4096 (x) 126 on v5e). Recasting it as a matmul feeds the
-MXU directly:
+with short filters (the combined context filters and the embedding bank),
+recast as one dense matmul:
 
 * chop each trajectory into segments of ``L + w - 1`` samples overlapping by
   ``w - 1`` (every segment covers ``L`` window starts);
@@ -12,9 +10,11 @@ MXU directly:
   (zero outside ``0 <= s - l < w``), one column per in-segment offset.
 
 Per output element this does ``(L + w - 1)`` MACs instead of ``w`` (2x
-overhead at ``L = 128``, ``w = 126``) but runs 10x faster end to end
-(0.098 s measured, same workload). Cost: the segment gather materialises
-``(R, n_blocks, L + w - 1)`` — callers chunk the R axis to budget.
+overhead at ``L = 128``, ``w = 126``) in exchange for one large matmul
+instead of a single-channel convolution; whether XLA's convolution
+(cuDNN) does better on the GPU is queued for measurement (ROADMAP A4).
+Cost: the segment gather materialises ``(R, n_blocks, L + w - 1)`` —
+callers chunk the R axis to budget.
 """
 from __future__ import annotations
 
@@ -23,7 +23,9 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-_L = 128  # output block: one MXU tile of window starts per segment
+from shadowing_tpu.ops import precision as _precision
+
+_L = 128  # output block: window starts per segment
 
 
 def _toeplitz(filt: jax.Array, L: int) -> jax.Array:
@@ -52,7 +54,7 @@ def sliding_dot(
     filt: jax.Array,     # (F, C, w)
     n_out: int,
     L: int = _L,
-    precision=jax.lax.Precision.HIGH,
+    precision=_precision.SELECT,
 ) -> jax.Array:          # (R, F, n_out)
     """All sliding-window correlations ``out[r, f, t] = sum_{c,tau}
     y[r, c, t + tau] * filt[f, c, tau]`` for ``t < n_out``."""

@@ -1,9 +1,8 @@
-"""Exact k-smallest selection, built for TPU.
+"""Exact k-smallest selection by block-min tournament.
 
 The shadow search needs the k smallest of ~1e8-1e9 window distances. XLA's
-general ``lax.top_k`` over such arrays lowers to a near-full sort (~0.5 s for
-1.3e8 f32 on one v5e chip, measured), so this module implements an exact
-**block-min tournament**:
+general ``lax.top_k`` over such arrays lowers to a near-full sort, so this
+module implements an exact **block-min tournament**:
 
 1. view the score array as ``(G, M)`` blocks and take each block's minimum
    (one streaming pass, bandwidth-bound);
@@ -38,13 +37,13 @@ import jax.numpy as jnp
 
 _DEFAULT_BLOCK = 128
 
-#: padded-HBM-bytes budget for the candidate-gather source. The gather
-#: operand ``blocks.reshape(B * n_blocks, block)`` must be physical, and a
-#: narrow (block=8) f32 row view lane-pads 8 -> 128 — a 16x expansion that
-#: reached 8.19 GB at the k=16384 backtest row (B=64, n=2.1e6) and OOM'd
-#: the chip. ``topk_min_batched`` chunks the gather + final ``top_k`` over
-#: batch rows to stay under this budget (bit-identical: rows are
-#: independent). Read once at import; tests monkeypatch the attribute (the
+#: byte budget for the candidate-gather source. The gather operand
+#: ``blocks.reshape(B * n_blocks, block)`` must be physical, and the
+#: budget counts a narrow (block=8) f32 row as padded to 128 lanes (a 16x
+#: expansion; the value was sized for another accelerator's memory layout
+#: and is queued for measurement on the GPU, ROADMAP A6).
+#: ``topk_min_batched`` chunks the gather + final ``top_k`` over batch rows
+#: to stay under this budget (bit-identical: rows are independent). Read once at import; tests monkeypatch the attribute (the
 #: value is baked into each jit trace, so use fresh shapes after patching).
 _GATHER_BUDGET = int(
     os.environ.get("SHADOWING_TPU_TOPK_GATHER_BUDGET", str(1 << 30))
@@ -118,20 +117,17 @@ def topk_min_batched(
     """Row-wise :func:`topk_min` over a 2-d score array, batched natively.
 
     Do NOT ``vmap(topk_min)``: its block gathers become batched two-index
-    gathers, which scalarise on TPU (measured ~4x slowdown of the whole
-    pass at B=1). Here ``lax.top_k`` batches natively and every gather is
-    a flattened single-axis ROW gather.
+    gathers. Here ``lax.top_k`` batches natively and every gather is a
+    flattened single-axis ROW gather.
 
     The tournament is **adaptive** (round 3): at large k the 128-wide block
     candidate set ``cap * block`` approaches n and the tournament degenerates
-    into a full gather + full ``top_k`` (measured 47 ms vs 13 ms for a plain
-    ``lax.top_k`` at n=1.3e6, k=1e4 on v5e). Two fixes, both certified by the
+    into a full gather + full ``top_k``. Two fixes, both certified by the
     same bound: (a) when ``cap * block`` is not a small fraction of n the
     fold narrows to ``_NARROW``-wide blocks, shrinking the candidate set to
     ``8 * cap``; (b) the cap-of-G block-minima selection recurses through
-    this same tournament instead of a flat ``top_k`` when G is itself large
-    (a width-8 fold + 83k-candidate top_k measured ~0 ms where the flat
-    1.3M-element ``top_k`` cost 13 ms).
+    this same tournament instead of a flat ``top_k`` when G is itself
+    large.
     """
     B, n = scores.shape
     if k > n:

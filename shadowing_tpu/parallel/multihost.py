@@ -1,28 +1,29 @@
-"""Multi-host (DCN) seams: process-keyed generation and per-host residency.
+"""Multi-host seams: process-keyed generation and per-host residency.
 
 The reference scales generation with SLURM job arrays
 (``/root/reference/scripts/snp_generation.py:14-20``: ``-ntot``/``-tid``)
-and has no multi-host compute at all. The TPU-native mapping (SURVEY.md §5)
-is single-controller multi-process JAX:
+and has no multi-host compute at all. The mapping here (SURVEY.md §5) is
+single-controller multi-process JAX:
 
 * **Generation (embarrassingly parallel)**: job-array task id maps to
   ``jax.process_index()`` (:func:`task_split`). Each host synthesises its
   own ``R / ntot`` slice with a disjoint, reproducible PRNG stream and
-  writes its own shard files — purely host-local compute, the DCN carries
-  nothing; restart stays per host exactly like the reference's job array.
+  writes its own shard files — purely host-local compute, the network
+  carries nothing; restart stays per host exactly like the reference's job
+  array.
 * **Shadow search (data-parallel over R)**: the dataset axis is sharded
   over *all* devices of a multi-host mesh. Each host loads only its own
   global row range from disk (:func:`host_row_range` — per-host dataset
   residency) and contributes it with
   ``jax.make_array_from_process_local_data``
   (:func:`shard_dataset_from_local`); the search's one ``all_gather`` of
-  (B, k) candidate pairs rides ICI within a host and DCN across hosts,
-  payload O(B·k·n_dev) — independent of R, so the dataset itself never
-  crosses the DCN.
+  (B, k) candidate pairs rides NVLink within a host and the network across
+  hosts, payload O(B·k·n_dev) — independent of R, so the dataset itself
+  never crosses the network.
 
 Single-process environments run the very same code paths
 (``process_count() == 1``), which is what the test suite and the driver's
-virtual-device dryrun exercise; a real pod slice additionally calls
+virtual-device dryrun exercise; a real multi-host run additionally calls
 :func:`initialize` (or ``jax.distributed.initialize``) before first JAX use.
 """
 from __future__ import annotations
@@ -43,7 +44,7 @@ def initialize(
 
     On a single host (no coordinator configured, no args) this is a no-op,
     so entry points can call it unconditionally. Arguments default to the
-    standard env plumbing (``JAX_COORDINATOR_ADDRESS`` etc. / TPU metadata).
+    standard env plumbing (``JAX_COORDINATOR_ADDRESS`` etc.).
 
     CAREFUL inside: ``jax.distributed.initialize`` must run before anything
     that initialises the XLA backends — even ``jax.process_count()`` does —
@@ -56,7 +57,7 @@ def initialize(
         coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     )
     if not env_has_coord and num_processes is None:
-        return  # single-host run (TPU pods auto-detect without this call)
+        return  # single-host run: nothing to join
     try:
         from jax._src import distributed as _dist
 
@@ -85,7 +86,7 @@ def task_split(
 
     Explicit values win (OS-level job arrays keep working); otherwise the
     JAX process grid supplies them, so the same CLI invocation on every
-    host of a pod slice partitions the work automatically.
+    host partitions the work automatically.
     """
     import jax
 

@@ -1,16 +1,16 @@
 """Multi-chip sharding of the shadow pipeline and synthesis training step.
 
 The reference has no distributed layer at all (SURVEY.md §0: its only
-multi-worker story is job-array generation sharding). The TPU-native design
-is single-controller JAX over a 1-d device mesh:
+multi-worker story is job-array generation sharding). The design here is
+single-controller JAX over a 1-d device mesh:
 
 * **Shadow pipeline**: the dataset axis R is sharded across the mesh
   (``P("data")``); contexts and the embedding kernel are replicated. Each
-  device runs the *same* fused scoring + tournament top-k the single-chip
-  engine uses (:func:`shadowing_tpu.shadow.engine._fused_search` — Toeplitz
-  ``sliding_dot`` cross term, block-min tournament selection; or the Pallas
-  two-pass kernel where eligible), then the per-device (value, global-index)
-  candidates ride ICI through one ``all_gather`` and an exact k-way merge.
+  device runs the *same* search the single-device engine uses (the factored
+  two-pass search of :mod:`shadowing_tpu.ops.factored` over its own shard's
+  responses, or :func:`shadowing_tpu.shadow.engine._fused_search`), then
+  the per-device (value, global-index) candidates go through one
+  ``all_gather`` and an exact k-way merge.
   Path extraction gathers each winner on the device that owns its trajectory
   and ``psum``-reduces the disjoint contributions; the exact rescore + sort
   run replicated on the tiny (B, k) winner set. Exactness is the same
@@ -25,7 +25,8 @@ is single-controller JAX over a 1-d device mesh:
   (Seeds are independent optimisations — the ideal dp workload.)
 
 Everything here works on any backend; the tests exercise an 8-virtual-device
-CPU mesh and the driver dry-runs the same code path. Engine integration:
+CPU mesh, and ``chip_smoke.py --four-cards`` runs it on four GPUs. Engine
+integration:
 ``PathShadowing(..., mesh=...)`` routes the whole pipeline through these
 functions (``shadowing_tpu/shadow/engine.py``).
 """
@@ -61,10 +62,10 @@ def data_ctx_mesh(n_data: int, n_ctx: int) -> Mesh:
     """A 2-d ``(data, ctx)`` mesh: dataset rows shard over ``data``,
     context batches over ``ctx``.
 
-    The scaling story for pod-scale backtests (BASELINE.md's v5p row —
-    ~10k dates at k<=16,384): the 1-d data mesh stops paying once R/n_dev
-    shards get small while the per-context selection state (pass-2 cap x
-    lanes at large k) and the O(B * k * n_dev) ICI merge payload keep
+    The scaling story for large backtests (~10k dates at k<=16,384): the
+    1-d data mesh stops paying once R/n_dev shards get small while the
+    per-context selection state (pass-2 cap x block at large k) and the
+    O(B * k * n_dev) merge payload keep
     growing with B. Splitting the context batch over a second axis keeps
     both per-device: each ``ctx`` slice runs the search for B/n_ctx
     contexts against its ``data`` shard, so the merge payload drops to
@@ -142,7 +143,7 @@ def sharded_window_norms(
     )(y)
 
 
-#: trace-time record of every ICI k-merge's gathered payload (per device),
+#: trace-time record of every k-merge's gathered payload (per device),
 #: keyed by the gathered shape ``(n_dev, B, k_loc) -> bytes``. Shapes are
 #: static, so an entry is written when a merge TRACES (not per dispatch);
 #: keying by shape means a jit-cache hit (nothing re-traced) still has its
@@ -153,9 +154,9 @@ def sharded_window_norms(
 LAST_MERGE_PAYLOAD: dict = {}
 
 
-def _ici_topk_merge(vals, idx, k):
-    """Gather every device's (B, k_loc) candidates over ICI and take the
-    exact global k-smallest (payload O(B * k * devices), independent of R)."""
+def _topk_merge(vals, idx, k):
+    """Gather every device's (B, k_loc) candidates and take the exact
+    global k-smallest (payload O(B * k * devices), independent of R)."""
     vals_all = jax.lax.all_gather(vals, DATA_AXIS)       # (n_dev, B, k_loc)
     idx_all = jax.lax.all_gather(idx, DATA_AXIS)
     LAST_MERGE_PAYLOAD[tuple(vals_all.shape)] = (
@@ -172,7 +173,7 @@ def _ici_topk_merge(vals, idx, k):
 @partial(
     jax.jit,
     static_argnames=("k", "n_out", "n_splits", "distance", "mesh", "block",
-                     "cap", "local_method", "interpret"),
+                     "cap"),
 )
 def sharded_fused_search(
     y: jax.Array,          # (R_pad, C, T), R sharded over mesh
@@ -186,21 +187,16 @@ def sharded_fused_search(
     n_splits: int = 1,
     block: int = 128,
     cap: Optional[int] = None,
-    local_method: str = "fused",
-    interpret: bool = False,
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """Mesh-sharded fused shadow search on the single-chip fast kernels.
+    """Mesh-sharded fused shadow search.
 
     Per device: the engine's ``_fused_search`` (Toeplitz ``sliding_dot``
-    cross term + tournament top-k, scanned over ``n_splits`` local chunks)
-    or, with ``local_method="pallas"`` on TPU, the fused two-pass Pallas
-    kernel. Then one ICI ``all_gather`` of the (B, k_loc) candidate pairs
-    and an exact merge — collective payload is O(B * k * devices),
-    independent of R.
+    cross term + tournament top-k, scanned over ``n_splits`` local chunks).
+    Then one ``all_gather`` of the (B, k_loc) candidate pairs and an exact
+    merge — collective payload is O(B * k * devices), independent of R.
 
     Returns (values (B, k) ascending, global flat indices (B, k), ok (B,)).
     """
-    from shadowing_tpu.ops import pallas_search
     from shadowing_tpu.shadow.engine import _fused_search
 
     n_dev = mesh.shape[DATA_AXIS]
@@ -216,18 +212,12 @@ def sharded_fused_search(
 
     def local(y_loc, n_loc):
         ax = jax.lax.axis_index(DATA_AXIS)
-        if local_method == "pallas":
-            vals, idx, ok = pallas_search.two_pass_search(
-                y_loc, n_loc, g, k=k_loc, n_out=n_out, cap=cap,
-                interpret=interpret,
-            )
-        else:
-            vals, idx, ok = _fused_search(
-                y_loc, n_loc, g, x_norm2, k=k_loc, n_out=n_out,
-                n_splits=ns, distance=distance, block=block, cap=cap,
-            )
+        vals, idx, ok = _fused_search(
+            y_loc, n_loc, g, x_norm2, k=k_loc, n_out=n_out,
+            n_splits=ns, distance=distance, block=block, cap=cap,
+        )
         idx = idx + ax.astype(jnp.int32) * (r_loc * n_out)
-        merged_v, merged_i = _ici_topk_merge(vals, idx, k)
+        merged_v, merged_i = _topk_merge(vals, idx, k)
         ok_all = jax.lax.all_gather(ok, DATA_AXIS).all(axis=0)
         return merged_v, merged_i, ok_all
 
@@ -272,7 +262,7 @@ def sharded_fused_search_2d(
     ``data``, the context batch over ``ctx``.
 
     Per device: the engine's ``_fused_search`` for its B/n_ctx contexts
-    against its R/n_data rows; then the exact k-merge rides ICI along the
+    against its R/n_data rows; then the exact k-merge runs along the
     ``data`` axis only (payload O(B/n_ctx * k * n_data) per device — a
     factor n_ctx below the 1-d mesh), and one ``ctx`` all_gather
     re-assembles the replicated (B, k) result. Same array-identity
@@ -304,7 +294,7 @@ def sharded_fused_search_2d(
             n_splits=ns, distance=distance, block=block, cap=cap,
         )
         idx = idx + ax.astype(jnp.int32) * (r_loc * n_out)
-        merged_v, merged_i = _ici_topk_merge(vals, idx, k)
+        merged_v, merged_i = _topk_merge(vals, idx, k)
         ok_all = jax.lax.all_gather(ok, DATA_AXIS).all(axis=0)
         # re-assemble the context axis: each ctx slice holds the final
         # (B_loc, k) winners for ITS contexts — one gather replicates
@@ -330,13 +320,12 @@ def sharded_pad_views(
     w: int,
     mesh: Mesh,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Per-device Pallas pad views, built ONCE per (dataset, plan) — the mesh
-    twin of the single-device engine's ``_padded`` cache (the padding copies
-    cost ~2 full-array passes per call otherwise)."""
-    from shadowing_tpu.ops.pallas_search import _pad_views
+    """Per-device factored pad views, built ONCE per (dataset, plan) — the
+    mesh twin of the single-device engine's ``_padded`` cache."""
+    from shadowing_tpu.ops.factored import pad_views
 
     return jax.shard_map(
-        lambda y_loc, n_loc: _pad_views(y_loc, n_loc, n_out, w),
+        lambda y_loc, n_loc: pad_views(y_loc, n_loc, n_out, w),
         mesh=mesh,
         in_specs=(P(DATA_AXIS, None, None), P(DATA_AXIS, None)),
         out_specs=(P(DATA_AXIS, None, None), P(DATA_AXIS, None)),
@@ -344,82 +333,37 @@ def sharded_pad_views(
     )(y, norms)
 
 
-@partial(
-    jax.jit,
-    static_argnames=("k", "n_out", "r_loc", "mesh", "cap", "interpret"),
-)
-def sharded_pallas_search_padded(
-    y3: jax.Array,         # (Rp, C, cols) from sharded_pad_views, sharded
-    n2: jax.Array,         # (Rp, nblk * L) from sharded_pad_views, sharded
-    g: jax.Array,          # (B, C, w) combined filters, replicated
-    k: int,
-    n_out: int,
-    r_loc: int,            # UNPADDED per-device row count (global ids)
-    mesh: Mesh,
-    cap: Optional[int] = None,
-    interpret: bool = False,
-) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """Mesh-sharded fused two-pass Pallas search on cached pad views — the
-    default TPU mesh route (``PathShadowing(mesh=...)`` + ``method="auto"``).
-
-    Per device: :func:`shadowing_tpu.ops.pallas_search.two_pass_search_padded`
-    on its local shard; then the same ICI all_gather k-merge as the fused
-    path. Row padding inside the views carries +inf norms, so padded rows
-    never win and local winner ids stay below ``r_loc * n_out``.
-    """
-    from shadowing_tpu.ops import pallas_search
-
-    k_loc = min(k, r_loc * n_out)
-
-    def local(y3_loc, n2_loc):
-        ax = jax.lax.axis_index(DATA_AXIS)
-        vals, idx, ok = pallas_search.two_pass_search_padded(
-            y3_loc, n2_loc, g, k=k_loc, n_out=n_out, cap=cap,
-            interpret=interpret,
-        )
-        idx = idx + ax.astype(jnp.int32) * (r_loc * n_out)
-        merged_v, merged_i = _ici_topk_merge(vals, idx, k)
-        ok_all = jax.lax.all_gather(ok, DATA_AXIS).all(axis=0)
-        return merged_v, merged_i, ok_all
-
-    return jax.shard_map(
-        local, mesh=mesh,
-        in_specs=(P(DATA_AXIS, None, None), P(DATA_AXIS, None)),
-        out_specs=(P(), P(), P()),
-        check_vma=False,
-    )(y3, n2)
-
-
-@partial(jax.jit, static_argnames=("mesh",))
+@partial(jax.jit, static_argnames=("nbt", "mesh"))
 def sharded_build_factored(
     y3: jax.Array,         # (Rp, C, cols) from sharded_pad_views, sharded
     n2: jax.Array,         # (Rp, nblk * L) from sharded_pad_views, sharded
     kernel: jax.Array,     # (d, C, w) plan kernel, replicated
+    nbt: int,              # blocks per tile, from tiling() of the local R
     mesh: Mesh,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Per-device factored embedding responses (E9, n4), built ONCE per
+    """Per-device factored embedding responses (E, nt), built ONCE per
     (dataset, plan) — the mesh twin of the single-device ``_factored``
     cache. Each device holds only its own row shard's responses, so the
-    E9 footprint scales down with the mesh."""
-    from shadowing_tpu.ops.pallas_factored import build_factored
+    E footprint scales down with the mesh."""
+    from shadowing_tpu.ops.factored import build_factored
 
     return jax.shard_map(
-        lambda y3_loc, n2_loc: build_factored(y3_loc, n2_loc, kernel),
+        lambda y3_loc, n2_loc: build_factored(y3_loc, n2_loc, kernel, nbt),
         mesh=mesh,
         in_specs=(P(DATA_AXIS, None, None), P(DATA_AXIS, None)),
         out_specs=(P(DATA_AXIS, None, None, None),
-                   P(DATA_AXIS, None, None, None)),
+                   P(DATA_AXIS, None, None)),
         check_vma=False,
     )(y3, n2)
 
 
 @partial(
     jax.jit,
-    static_argnames=("k", "n_out", "r_loc", "mesh", "cap", "interpret"),
+    static_argnames=("k", "n_out", "r_loc", "mesh", "cap"),
 )
 def sharded_factored_search(
-    E9: jax.Array,         # (NT, nblk, 2*dp, L*TR) sharded on NT
-    n4: jax.Array,         # (NT, nblk, 1, L*TR) sharded on NT
+    E: jax.Array,          # (NT, d, L, nbt) sharded on NT
+    nt: jax.Array,         # (NT, L, nbt) sharded on NT
     y3: jax.Array,         # (Rp, C, cols) sharded (pass-2 rescore)
     n2: jax.Array,         # (Rp, nblk * L) sharded
     g: jax.Array,          # (B, C, w) combined filters, replicated
@@ -429,35 +373,35 @@ def sharded_factored_search(
     r_loc: int,            # UNPADDED per-device row count (global ids)
     mesh: Mesh,
     cap: Optional[int] = None,
-    interpret: bool = False,
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """Mesh-sharded context-factored search: per device the
-    :func:`shadowing_tpu.ops.pallas_factored.two_pass_search_factored`
-    twin on its local E shard, then the same ICI all_gather k-merge as
-    every other mesh route."""
-    from shadowing_tpu.ops import pallas_factored
+    """Mesh-sharded factored search: per device
+    :func:`shadowing_tpu.ops.factored.two_pass_search_factored` on its local
+    E shard, then the same ``all_gather`` k-merge as every other mesh
+    route. Row padding inside the views carries +inf norms, so padded rows
+    never win and local winner ids stay below ``r_loc * n_out``."""
+    from shadowing_tpu.ops import factored
 
     k_loc = min(k, r_loc * n_out)
 
-    def local(E9_loc, n4_loc, y3_loc, n2_loc):
+    def local(E_loc, nt_loc, y3_loc, n2_loc):
         ax = jax.lax.axis_index(DATA_AXIS)
-        vals, idx, ok = pallas_factored.two_pass_search_factored(
-            E9_loc, n4_loc, y3_loc, n2_loc, g, x_emb,
-            k=k_loc, n_out=n_out, cap=cap, interpret=interpret,
+        vals, idx, ok = factored.two_pass_search_factored(
+            E_loc, nt_loc, y3_loc, n2_loc, g, x_emb,
+            k=k_loc, n_out=n_out, cap=cap,
         )
         idx = idx + ax.astype(jnp.int32) * (r_loc * n_out)
-        merged_v, merged_i = _ici_topk_merge(vals, idx, k)
+        merged_v, merged_i = _topk_merge(vals, idx, k)
         ok_all = jax.lax.all_gather(ok, DATA_AXIS).all(axis=0)
         return merged_v, merged_i, ok_all
 
     return jax.shard_map(
         local, mesh=mesh,
         in_specs=(P(DATA_AXIS, None, None, None),
-                  P(DATA_AXIS, None, None, None),
+                  P(DATA_AXIS, None, None),
                   P(DATA_AXIS, None, None), P(DATA_AXIS, None)),
         out_specs=(P(), P(), P()),
         check_vma=False,
-    )(E9, n4, y3, n2)
+    )(E, nt, y3, n2)
 
 
 @partial(
@@ -492,7 +436,7 @@ def sharded_direct_search(
             distance=distance, n_valid_rows=r_valid,
         )
         idx = idx + ax.astype(jnp.int32) * (r_loc * n_out)
-        return _ici_topk_merge(vals, idx, k)
+        return _topk_merge(vals, idx, k)
 
     return jax.shard_map(
         local, mesh=mesh,
@@ -531,9 +475,8 @@ def sharded_extract(
         lt = jnp.clip(ltraj, 0, r_loc - 1)
         C = y_loc.shape[1]
         B, k = lt.shape
-        # row gather + vmapped dynamic_slice, memory-budget chunked (see
-        # engine._rows_window_slice: the two-index window gather
-        # scalarises on TPU; the row buffer is bounded per device)
+        # the engine's window extraction, memory-budget chunked per device
+        # (see engine._rows_window_slice)
         sl = _rows_window_slice(y_loc, lt.reshape(-1), t0.reshape(-1),
                                 w_extract, budget=budget)
         paths = sl.reshape(B, k, C, w_extract)

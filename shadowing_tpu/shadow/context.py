@@ -2,11 +2,11 @@
 
 Rebuilds the reference's context objects
 (``/root/reference/shadowing/path_shadowing/path_embedding.py:13-114``) with
-two TPU-minded changes:
+two changes:
 
 * each context exposes a ``conv_plan`` that tells the engine how to apply an
-  embedding kernel to long dataset trajectories *without* wasting MXU cycles
-  on padded zeros: for a prediction context the reference convolves with a
+  embedding kernel to long dataset trajectories *without* wasting matmul
+  work on padded zeros: for a prediction context the reference convolves with a
   kernel padded by ``horizon`` trailing zeros (``path_embedding.py:48-51``);
   here the engine convolves with the unpadded kernel and simply restricts the
   valid start positions — identical math, ``horizon/w`` fewer FLOPs;

@@ -1,10 +1,10 @@
 """Path distances in embedding space.
 
 Rebuilds the reference's ``PathDistance`` / ``RelativeMSE``
-(``/root/reference/shadowing/path_shadowing/path_distance.py:8-65``) with a
-TPU-first addition: distances that decompose over the inner product expose a
+(``/root/reference/shadowing/path_shadowing/path_distance.py:8-65``) with one
+addition: distances that decompose over the inner product expose a
 *quadratic expansion* so the engine can score every dataset window with one
-MXU contraction plus a cached, context-independent window-norm array —
+matrix contraction plus a cached, context-independent window-norm array —
 instead of materialising a ``(B, R, T', d)`` broadcast difference:
 
 ``‖x - y‖² = ‖x‖² - 2⟨x, y⟩ + ‖y‖²``
@@ -31,8 +31,8 @@ class PathDistance:
     #: True if ``score`` / ``finalize`` implement the quadratic expansion
     supports_expansion: bool = False
     #: True if the selection score is exactly ``y_norm2 - 2 * cross`` (the
-    #: form hard-wired into the Pallas search kernel)
-    pallas_score_form: bool = False
+    #: form hard-wired into the factored pass-1, ``ops/factored.py``)
+    factored_score_form: bool = False
 
     def __call__(self, x: Array, y: Array) -> jax.Array:
         return self.forward(x, y)
@@ -120,7 +120,7 @@ class RelativeMSE(PathDistance):
     ``path_distance.py:62-65``)."""
 
     supports_expansion = True
-    pallas_score_form = True
+    factored_score_form = True
 
     def forward(self, x: Array, y: Array) -> jax.Array:
         x = jnp.asarray(x)
@@ -145,7 +145,7 @@ class MSE(PathDistance):
     """Plain Euclidean distance ``‖x - y‖`` (extension beyond the reference)."""
 
     supports_expansion = True
-    pallas_score_form = True
+    factored_score_form = True
 
     def forward(self, x: Array, y: Array) -> jax.Array:
         return jnp.linalg.norm(jnp.asarray(x) - jnp.asarray(y), axis=-1)

@@ -2,9 +2,9 @@
 
 Rebuilds the reference's embeddings
 (``/root/reference/shadowing/path_shadowing/path_embedding.py:117-172``)
-TPU-natively: an embedding is a ``(d, C, w)`` kernel bank; embedding every
-sliding window of a ``(B, C, T)`` series is one ``lax.conv_general_dilated``
-(cross-correlation, VALID) that XLA tiles onto the MXU. The kernel is plain
+as convolution kernels: an embedding is a ``(d, C, w)`` kernel bank;
+embedding every sliding window of a ``(B, C, T)`` series is one
+``lax.conv_general_dilated`` (cross-correlation, VALID). The kernel is plain
 numpy (host state); it is shipped to device once by the engine.
 
 Key members:
@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from shadowing_tpu.array_types import Array, as_jax_f32, dim_bct
+from shadowing_tpu.ops import precision
 
 _DN = ("NCH", "OIH", "NCH")  # conv dimension numbers for (B, C, T) layout
 
@@ -41,9 +42,9 @@ def conv_embed(x: Array, kernel: Array) -> jax.Array:
     out = jax.lax.conv_general_dilated(
         x, kernel, window_strides=(1,), padding="VALID", dimension_numbers=_DN,
         preferred_element_type=jnp.float32,
-        # full f32: on TPU the default precision truncates to bf16 passes,
-        # which would skew context embeddings by ~1e-3 relative
-        precision=jax.lax.Precision.HIGHEST,
+        # full f32: the GPU's default TF32 would skew context embeddings
+        # by ~1e-3 relative
+        precision=precision.EXACT,
     )  # (B, d, T')
     return jnp.swapaxes(out, 1, 2)
 

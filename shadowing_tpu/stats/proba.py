@@ -1,6 +1,6 @@
 """Discrete averaging measures over shadowing paths.
 
-TPU-native replacement for the ``scatspectra`` ``DiscreteProba`` /
+Replacement for the ``scatspectra`` ``DiscreteProba`` /
 ``Uniform`` / ``Softmax`` surface used by the reference
 (``/root/reference/shadowing/path_shadowing/path_shadowing.py:9,220-252``,
 ``plot_utils.py:74-76,131-133``): weighted mean / standard deviation over the

@@ -35,7 +35,8 @@ def _style_axis(ax, w_past: int, horizon: int, ylim: float):
 
 def _title_date(ax, date, color):
     if date is not None:
-        ax.set_title(date.strftime("%Y/%m/%d"), fontsize=16, color=color)
+        day = str(np.datetime64(date, "D")).replace("-", "/")
+        ax.set_title(day, fontsize=16, color=color)
 
 
 def plot_closest(

@@ -94,10 +94,11 @@ class TestSPDaily:
         assert len(snp.dts) == snp.dlnx.shape[-1]
 
         sub = SPDaily(start="03-01-2000", end="31-12-2014")
-        assert sub.dts[0].year == 2000
-        assert sub.dts[-1].year == 2014
+        assert sub.dts.dtype == np.dtype("datetime64[D]")
+        assert sub.dts[0].astype("datetime64[Y]") == np.datetime64("2000")
+        assert sub.dts[-1].astype("datetime64[Y]") == np.datetime64("2014")
         # day-first parsing: 03-01-2000 is January 3rd
-        assert sub.dts[0].month == 1
+        assert sub.dts[0].astype("datetime64[M]") == np.datetime64("2000-01")
 
     def test_realistic_scale(self):
         snp = SPDaily()

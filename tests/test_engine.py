@@ -112,13 +112,12 @@ class TestShadowCore:
         np.testing.assert_array_equal(d1, d4)
         np.testing.assert_array_equal(d1, d5)
 
-    def test_tie_order_canonical_across_methods(self, rng, monkeypatch):
+    def test_tie_order_canonical_across_methods(self, rng):
         """Distinct windows CAN tie bit-exactly in f32 distance (duplicated
         trajectories here; observed in the wild at a 32768x4096 search).
         Every method must break ties identically — canonical (distance,
-        flat id) order — so fused / pallas / direct return bit-identical
+        flat id) order — so fused / factored / direct return bit-identical
         indices, not just distances."""
-        monkeypatch.setenv("SHADOWING_TPU_PALLAS_INTERPRET", "1")
         dataset = rng.normal(0, 0.02, size=(32, 1, 256)).astype(np.float32)
         dataset[17] = dataset[3]   # every window of traj 3 ties with traj 17
         dataset[29] = dataset[3]
@@ -129,7 +128,7 @@ class TestShadowCore:
         k = 60  # deep enough to contain many tied triples
         d_f, _, i_f = obj.shadow(x_context, k=k, method="fused")
         d_d, _, i_d = obj.shadow(x_context, k=k, method="direct")
-        d_p, _, i_p = obj.shadow(x_context, k=k, method="pallas")
+        d_p, _, i_p = obj.shadow(x_context, k=k, method="factored")
         np.testing.assert_array_equal(d_f, d_d)
         np.testing.assert_array_equal(i_f, i_d)
         np.testing.assert_array_equal(d_f, d_p)
@@ -328,46 +327,6 @@ class TestCertificationFallback:
         d, p, i = obj2.shadow(x_context, k=32, method="fused")
         np.testing.assert_array_equal(i, i_ref)
         np.testing.assert_allclose(d, d_ref, rtol=1e-6)
-
-    def test_pallas_redo_escalates_and_memoizes(self, small_problem,
-                                                monkeypatch):
-        """Pallas-route certification failure: tier-1 redo retries the fast
-        kernel at a wider cap (not the direct oracle) and memoizes the
-        certified cap so the next same-shape search skips the redo."""
-        from shadowing_tpu.shadow import engine as eng
-
-        monkeypatch.setenv("SHADOWING_TPU_PALLAS_INTERPRET", "1")
-        monkeypatch.setenv("SHADOWING_TPU_NO_FACTORED", "1")
-        dataset, x_context = small_problem
-        obj = PathShadowing(Identity(24), RelativeMSE(), dataset,
-                            PredictionContext(horizon=16))
-        d_ref, p_ref, i_ref = obj.shadow(x_context, k=32, method="direct")
-
-        orig = eng.pallas_search.two_pass_search_padded
-        calls = {"n": 0}
-
-        def forced(*a, **kw):
-            calls["n"] += 1
-            if calls["n"] == 1:  # cripple only the primary search
-                kw["cap"] = 1
-            return orig(*a, **kw)
-
-        monkeypatch.setattr(eng.pallas_search, "two_pass_search_padded",
-                            forced)
-        obj2 = PathShadowing(Identity(24), RelativeMSE(), dataset,
-                             PredictionContext(horizon=16))
-        d, p, i = obj2.shadow(x_context, k=32, method="pallas")
-        np.testing.assert_array_equal(i, i_ref)
-        np.testing.assert_allclose(d, d_ref, rtol=1e-6)
-        assert calls["n"] == 2  # primary + escalated retry, no third pass
-        B = x_context.shape[0] if x_context.ndim == 3 else 1
-        assert obj2._cap_memo.get((B, 32)) is not None
-        assert any("escalated cap" in m for m in obj2.routing_log)
-        # same shape again: routes at the memoized cap, no redo
-        d2, p2, i2 = obj2.shadow(x_context, k=32, method="pallas")
-        assert calls["n"] == 3
-        np.testing.assert_array_equal(i2, i_ref)
-        assert any("cap memo" in m for m in obj2.routing_log)
 
     def test_predict_redo_path(self, small_problem, monkeypatch):
         from shadowing_tpu.shadow import engine as eng
@@ -597,7 +556,7 @@ class TestLastMetrics:
         m = obj.last_metrics
         assert m["entry"] == "shadow"
         assert m["B"] == 3 and m["k"] == 8
-        assert m["method"] in ("fused", "pallas", "direct")
+        assert m["method"] in ("factored", "fused", "direct")
         assert m["n_splits"] >= 1 and m["wall_s"] > 0
         assert m["redo_contexts"] == 0 and m["mesh"] is None
 

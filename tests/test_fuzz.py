@@ -4,7 +4,7 @@ Each trial draws a random configuration (shapes, channels, embedding,
 context manager, distance, k) and asserts the cross-method contracts the
 fixed-config tests pin individually:
 
-* fused / pallas(interpret) / direct agree — distances to 2e-5, indices
+* fused / factored / direct agree — distances to 2e-5, indices
   exactly wherever the float64 ranking is not a near-tie (near-tie =
   within f32 resolution — cosine concentrates near-parallel windows
   inside it; see CosineDistance's docstring);
@@ -144,8 +144,7 @@ def _draw_engine_cfg(rng):
 
 
 @pytest.mark.parametrize("trial", range(N))
-def test_engine_cross_method_contracts(trial, monkeypatch):
-    monkeypatch.setenv("SHADOWING_TPU_PALLAS_INTERPRET", "1")
+def test_engine_cross_method_contracts(trial):
     rng = np.random.default_rng(10_000 + trial)
     drawn = _draw_engine_cfg(rng)
     if drawn is None:
@@ -159,7 +158,8 @@ def test_engine_cross_method_contracts(trial, monkeypatch):
     d_d, p_d, i_d = obj.shadow(x_ctx, k=k, method="direct")
     d_64, _, _ = obj.shadow(x_ctx, k=k, method="direct",
                             exact_dtype="float64")
-    methods = ("fused", "pallas") if dist.pallas_score_form else ("fused",)
+    methods = (("fused", "factored") if dist.factored_score_form
+               else ("fused",))
     # normalized distances (RelativeMSE, cosine) compare in the squared
     # frame too: boundary swaps within the expansion's resolution window
     # change the reported tail distances by up to ~eps/d relative

@@ -5,7 +5,7 @@ virtual devices, loads only its own global dataset row range from the
 "disk" (per-host residency via ``host_row_range``), contributes it with
 ``shard_dataset_from_local``, and runs the public mesh engine. Results
 must be identical across processes and equal to the single-process
-oracle. On a TPU pod slice the same code path only swaps the backend.
+oracle. On several GPU hosts the same code path only swaps the backend.
 """
 import os
 import socket

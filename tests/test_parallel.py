@@ -201,16 +201,13 @@ class TestEngineMesh:
         return dataset, ctx
 
     @pytest.mark.parametrize("n_dev,B", [(1, 3), (8, 3), (8, 9)])
-    def test_shadow_matches_single_device(self, rng, n_dev, B, monkeypatch):
+    def test_shadow_matches_single_device(self, rng, n_dev, B):
         """Mesh-size invariance through the public API, with an R that does
-        NOT divide the mesh (padding path). The B=9 case routes BOTH sides
-        through the factored-E kernel — the single device directly, the
-        mesh via per-device E shards — and they must still be identical."""
+        NOT divide the mesh (padding path). Both sides take the factored
+        route — the single device directly, the mesh via per-device E
+        shards — and they must still be identical."""
         from shadowing_tpu import PathShadowing, PredictionContext
 
-        if B >= PathShadowing.FACTORED_MIN_B:
-            # enable the (interpreted) pallas route so auto picks factored
-            monkeypatch.setenv("SHADOWING_TPU_PALLAS_INTERPRET", "1")
         dataset, ctx = self._problem(rng, B=B)  # R=100: uneven over 8
         mk = lambda mesh: PathShadowing(
             Identity(16), RelativeMSE(), dataset,
@@ -218,13 +215,11 @@ class TestEngineMesh:
         )
         single = mk(None)
         d0, p0, i0 = single.shadow(ctx, k=24)
-        if B >= PathShadowing.FACTORED_MIN_B:
-            assert single._factored is not None
+        assert single._factored is not None
         meshed = mk(n_dev)
         dm, pm, im = meshed.shadow(ctx, k=24)
-        if B >= PathShadowing.FACTORED_MIN_B:
-            # the mesh route builds per-device E shards for context batches
-            assert meshed._factored is not None
+        # the mesh route builds per-device E shards
+        assert meshed._factored is not None
         np.testing.assert_array_equal(im, i0)
         np.testing.assert_array_equal(dm, d0)
         np.testing.assert_array_equal(pm, p0)
@@ -292,7 +287,7 @@ class TestEngineMesh:
 
 class TestMultiHost:
     """Multi-host seams (single-process here; the process grid is faked
-    where the logic depends on it — real pods only add
+    where the logic depends on it — real multi-host runs only add
     jax.distributed.initialize)."""
 
     def test_task_split(self, monkeypatch):
@@ -302,7 +297,7 @@ class TestMultiHost:
         assert multihost.task_split(4, 3) == (4, 3)
         # single-process defaults: one task
         assert multihost.task_split() == (1, 0)
-        # process grid supplies the defaults on a pod slice
+        # process grid supplies the defaults on several hosts
         monkeypatch.setattr(jax, "process_count", lambda: 8)
         monkeypatch.setattr(jax, "process_index", lambda: 5)
         assert multihost.task_split() == (8, 5)
@@ -390,9 +385,9 @@ class TestMultiHost:
         assert (np.asarray(im)[..., 0] < R_true).all()
 
 
-class TestMeshPallas:
-    """The default TPU mesh route — per-device Pallas two-pass kernel over
-    cached pad views — executed here in interpret mode on the CPU mesh."""
+class TestMeshFactored:
+    """The mesh's default route — per-device factored search over cached
+    pad views and E shards — on the CPU mesh."""
 
     def _problem(self, rng, R=100, T=256, w=16, B=2):
         dataset = rng.normal(0, 0.02, size=(R, 1, T)).astype(np.float32)
@@ -400,9 +395,7 @@ class TestMeshPallas:
         return dataset, ctx
 
     @pytest.mark.parametrize("n_dev", [1, 8])
-    def test_engine_mesh_pallas_matches_single_device(self, rng, n_dev,
-                                                      monkeypatch):
-        monkeypatch.setenv("SHADOWING_TPU_PALLAS_INTERPRET", "1")
+    def test_engine_mesh_factored_matches_single_device(self, rng, n_dev):
         from shadowing_tpu import PathShadowing, PredictionContext
 
         dataset, ctx = self._problem(rng)     # R=100: uneven over 8
@@ -412,31 +405,38 @@ class TestMeshPallas:
         )
         d0, p0, i0 = mk(None).shadow(ctx, k=24, method="fused")
         obj = mk(n_dev)
-        dm, pm, im = obj.shadow(ctx, k=24, method="pallas")
+        dm, pm, im = obj.shadow(ctx, k=24, method="factored")
         assert obj._padded is not None        # pad views built and cached
         np.testing.assert_array_equal(im, i0)
         np.testing.assert_array_equal(dm, d0)
         np.testing.assert_array_equal(pm, p0)
         # second call reuses the cached views and still agrees
-        dm2, pm2, im2 = obj.shadow(ctx, k=24, method="pallas")
+        dm2, pm2, im2 = obj.shadow(ctx, k=24, method="factored")
         np.testing.assert_array_equal(im2, i0)
         np.testing.assert_array_equal(dm2, d0)
 
-    def test_auto_routes_to_pallas_under_force(self, rng, monkeypatch):
-        """method='auto' + mesh picks the pallas route when eligible."""
-        monkeypatch.setenv("SHADOWING_TPU_PALLAS_INTERPRET", "1")
+    def test_auto_routes_to_factored(self, rng):
+        """method='auto' + mesh picks the factored route when eligible."""
         from shadowing_tpu import PathShadowing, PredictionContext
 
         dataset, ctx = self._problem(rng, R=64)
         obj = PathShadowing(Identity(16), RelativeMSE(), dataset,
                             PredictionContext(horizon=8), mesh=8)
         d, p, i = obj.shadow(ctx, k=8)        # auto
-        assert obj._padded is not None        # proves the pallas route ran
+        assert obj.last_metrics["method"] == "factored"
+        assert obj._factored is not None
         d0, _, i0 = obj.shadow(ctx, k=8, method="fused")
         np.testing.assert_array_equal(np.asarray(i), np.asarray(i0))
 
-    def test_sharded_fused_search_pallas_local(self, rng, monkeypatch):
-        """Direct sharded_fused_search(local_method='pallas') parity."""
+    def test_sharded_factored_search_matches_fused(self, rng):
+        """Direct sharded_factored_search parity with sharded_fused_search."""
+        from shadowing_tpu.ops.factored import tiling
+        from shadowing_tpu.parallel.sharding import (
+            sharded_build_factored,
+            sharded_factored_search,
+            sharded_pad_views,
+        )
+
         y, kernel, n_out, x_emb, x_norm2, g = _setup(rng, R=128, T=256)
         mesh = data_mesh(8)
         y_sh = shard_dataset(jnp.asarray(y), mesh)
@@ -445,11 +445,13 @@ class TestMeshPallas:
         sh = jax.sharding.NamedSharding(
             mesh, jax.sharding.PartitionSpec("data", None))
         norms_sh = jax.device_put(norms, sh)
-        vp, ip, okp = sharded_fused_search(
-            y_sh, norms_sh, g, x_norm2, k=16, n_out=n_out,
-            distance=RelativeMSE(), mesh=mesh, local_method="pallas",
-            interpret=True,
-        )
+        w = kernel.shape[-1]
+        y3, n2 = sharded_pad_views(y_sh, norms_sh, n_out=n_out, w=w,
+                                   mesh=mesh)
+        E, nt = sharded_build_factored(y3, n2, kernel,
+                                       nbt=tiling(16, n_out)[1], mesh=mesh)
+        vp, ip, okp = sharded_factored_search(
+            E, nt, y3, n2, g, x_emb, k=16, n_out=n_out, r_loc=16, mesh=mesh)
         vf, if_, okf = sharded_fused_search(
             y_sh, norms_sh, g, x_norm2, k=16, n_out=n_out,
             distance=RelativeMSE(), mesh=mesh,

@@ -386,40 +386,84 @@ class TestFlatness:
         assert (f_gen > 2.3).any()
 
 
-class TestMMFFTPath:
-    def test_mm_stats_match_native_fft(self, rng):
-        """The MXU matmul-DFT path must reproduce the native-FFT statistics
-        to f32 round-off (same function serves targets and seeds)."""
-        from shadowing_tpu.models.scattering.moments import (
-            _scattering_stats_flat,
-        )
+def _stats_oracle(x, psi_hat, J):
+    """The statistic vector from its definitions, in float64 NumPy and in
+    the time domain (no Parseval shortcut, no band truncation): the
+    independent reference for ``_scattering_stats_flat``."""
+    from shadowing_tpu.models.scattering.moments import (
+        _index_pairs,
+        _index_triples,
+    )
 
-        T, J = 1024, 6
+    x = np.asarray(x, np.float64)
+    T = x.shape[-1]
+    psi = np.asarray(psi_hat, np.float64)
+    mean = x.mean(-1)
+    xc = x - mean[:, None]
+    var = (xc**2).mean(-1)
+    W = np.fft.ifft(np.fft.fft(xc)[:, None, :] * psi[None], axis=-1)
+    env = np.abs(W)                                       # (B, J, T)
+    p2 = (env**2).mean(-1)
+    sig = np.sqrt(p2)
+    envc = env - env.mean(-1, keepdims=True)
+    # Wenv[:, a, c] = W_c(centred envelope a)
+    Wenv = np.fft.ifft(np.fft.fft(envc)[:, :, None, :] * psi[None, None],
+                       axis=-1)
+    ia, ib = _index_pairs(J)
+    phi3 = (Wenv[:, ia, ib] * np.conj(W[:, ib])).mean(-1) / (
+        sig[:, ia] * sig[:, ib])
+    ta, tb, tc = _index_triples(J)
+    phi4 = (Wenv[:, ta, tc] * np.conj(Wenv[:, tb, tc])).mean(-1) / (
+        sig[:, ta] * sig[:, tb])
+    return np.concatenate([
+        (mean * np.sqrt(T) / np.sqrt(var))[:, None],
+        np.log(var)[:, None],
+        np.log(p2 / var[:, None]),
+        env.mean(-1) ** 2 / p2,
+        np.log((env**4).mean(-1)) - 2 * np.log(p2),
+        phi3.real, phi3.imag, phi4.real, phi4.imag,
+    ], axis=-1)
+
+
+def _fat_tailed(rng, B, T):
+    """Volatility-clustered series, so Phi_3 / Phi_4 are not all ~0."""
+    vol = np.exp(np.cumsum(rng.normal(0, 0.05, size=(B, T)), axis=-1))
+    return (rng.standard_t(4, size=(B, T)) * vol).astype(np.float32)
+
+
+class TestStatsOracle:
+    """scattering_stats through XLA's FFT against the float64 oracle."""
+
+    @pytest.mark.parametrize("J,T", [(3, 128), (5, 512), (6, 1000),
+                                     (9, 4096)])
+    def test_stats_match_float64_oracle(self, rng, J, T):
         bank = build_filter_bank(T, J)
-        x = jnp.asarray(rng.normal(size=(8, T)), jnp.float32)
-        psi = jnp.asarray(bank.psi_hat)
-        a = np.asarray(_scattering_stats_flat(x, psi, J=J, use_mm=False))
-        b = np.asarray(_scattering_stats_flat(x, psi, J=J, use_mm=True))
-        np.testing.assert_allclose(b, a, atol=5e-4, rtol=1e-4)
+        x = _fat_tailed(rng, 3, T)
+        got = np.asarray(scattering_stats(jnp.asarray(x), bank,
+                                          average=False))
+        want = _stats_oracle(x, bank.psi_hat, J)
+        assert got.shape == want.shape == (3, n_stats(J))
+        # float32 FFTs: ~1e-6 relative on the spectra; the small Phi_3 /
+        # Phi_4 entries carry that as an absolute error
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5)
 
-    def test_mm_grad_matches_native(self, rng):
-        from shadowing_tpu.models.scattering.moments import (
-            _scattering_stats_flat,
-        )
-
-        T, J = 512, 5
+    @pytest.mark.parametrize("J,T", [(3, 128), (4, 256), (6, 512)])
+    def test_gradient_matches_oracle_difference(self, rng, J, T):
+        """Directional derivative of a random linear functional of the
+        statistics: jax.grad (float32) against a central difference of the
+        float64 oracle."""
         bank = build_filter_bank(T, J)
-        x = jnp.asarray(rng.normal(size=(4, T)), jnp.float32)
-        psi = jnp.asarray(bank.psi_hat)
-        tgt = _scattering_stats_flat(x[:1], psi, J=J, use_mm=False)[0]
-
-        def loss(z, mm):
-            s = _scattering_stats_flat(z, psi, J=J, use_mm=mm)
-            return ((s - tgt[None]) ** 2).mean()
-
-        ga = np.asarray(jax.grad(lambda z: loss(z, False))(x))
-        gb = np.asarray(jax.grad(lambda z: loss(z, True))(x))
-        np.testing.assert_allclose(gb, ga, atol=1e-5 + 1e-3 * np.abs(ga).max())
+        x = _fat_tailed(rng, 2, T)
+        c = rng.normal(size=(2, n_stats(J)))
+        v = rng.normal(size=x.shape)
+        f = lambda z: (jnp.asarray(c, jnp.float32) * scattering_stats(
+            z, bank, average=False)).sum()
+        g = np.asarray(jax.grad(f)(jnp.asarray(x)), np.float64)
+        h = 1e-4
+        num = ((c * _stats_oracle(x + h * v, bank.psi_hat, J)).sum()
+               - (c * _stats_oracle(x - h * v, bank.psi_hat, J)).sum()) / (
+                   2 * h)
+        np.testing.assert_allclose((g * v).sum(), num, rtol=2e-3)
 
 
 class TestColouredInit:
@@ -607,8 +651,8 @@ class TestWarmupExecutables:
             # trace (= compile) anything new. Python-level key recording
             # misses jit-key subtleties (a weak-typed i0 scalar keyed a
             # DIFFERENT executable than the run's strong-typed one and
-            # cost 13-29 s remote compiles inside timed runs — caught by
-            # exactly this assertion)
+            # put compiles inside timed runs — caught by exactly this
+            # assertion)
             n_tr = (orig_c._cache_size(), orig_f._cache_size(),
                     orig_d._cache_size(),
                     syn._standardize_jit._cache_size(),
